@@ -9,18 +9,18 @@ Run:  PYTHONPATH=<repo> python examples/api_examples/liddrivencavity2d.py
 import jax
 import jax.numpy as jnp
 
-from petibm_tpu import BoundarySet, StaggeredMesh
-from petibm_tpu.ics import initial_fields
-from petibm_tpu.linalg import bicgstab, cg
-from petibm_tpu.linalg.mg import PoissonMG
-from petibm_tpu.operators import (
+from petibm_jax import BoundarySet, StaggeredMesh
+from petibm_jax.ics import initial_fields
+from petibm_jax.linalg import bicgstab, cg
+from petibm_jax.linalg.mg import PoissonMG
+from petibm_jax.operators import (
     make_bn,
     make_convection,
     make_divergence,
     make_gradient,
     make_laplacian,
 )
-from petibm_tpu.timeintegration import create_time_integration
+from petibm_jax.timeintegration import create_time_integration
 
 tmap = jax.tree_util.tree_map
 

@@ -17,7 +17,7 @@ import tempfile
 import jax.numpy as jnp
 import numpy as np
 
-from petibm_tpu.solvers.rigidkinematics import RigidKinematicsSolver
+from petibm_jax.solvers.rigidkinematics import RigidKinematicsSolver
 
 # in-line cylinder oscillation, Re = U_m D / nu = 100, KC = U_m / (f D) = 5
 F_OSC = 0.2          # oscillation frequency

@@ -86,7 +86,7 @@ ROWS = [
 def main() -> int:
     lines = [HEADER]
     lines.append("| Case | Published target | Result | Pass | Steps | "
-                 "Platform | ms/step |")
+                 "Device (name, power limit) | ms/step |")
     lines.append("|---|---|---|---|---|---|---|")
     for case, title, target, fmt in ROWS:
         path = os.path.join(REPO, "validation", f"{case}.json")
@@ -104,7 +104,7 @@ def main() -> int:
         lines.append(
             f"| {title} | {target} | {fmt(r)} | "
             f"{'PASS' if r.get('pass') else 'FAIL'} | {d.get('steps')} | "
-            f"{d.get('platform')} ({d.get('device', '?')}) | "
+            f"{d.get('gpu') or d.get('platform')} | "
             f"{ms} |")
     lines.append("")
     lines.append("Raw records: `validation/<case>.json`.  Cavity Re=100 "

@@ -36,7 +36,7 @@ FIGDIR = os.path.join(REPO, "docs", "figures")
 
 # simulation = solid line, published = open circles: identity is carried
 # by mark type as well as hue (colorblind/print safe for 2 series)
-SIM = dict(color="#2f6fde", lw=1.6, zorder=2, label="petibm-tpu")
+SIM = dict(color="#2f6fde", lw=1.6, zorder=2, label="petibm-jax")
 PUB = dict(color="#343a46", marker="o", ls="none", mfc="none", ms=5,
            zorder=3)
 
@@ -154,7 +154,7 @@ def flatplate_aoa() -> bool:
     for ax, key, name in ((a1, "cd", "$C_D$"), (a2, "cl", "$C_L$")):
         ax.plot(aoa, [p[key] for p in pts], marker="s", ms=4, **{
             k: v for k, v in SIM.items() if k != "label"},
-            label="petibm-tpu")
+            label="petibm-jax")
         ax.plot(aoa, [p[f"{key}_published"] for p in pts], **PUB,
                 label="Taira et al. 2007 (exp: Taira & Colonius)")
         ax.set(xlabel="angle of attack (deg)", ylabel=name)

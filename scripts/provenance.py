@@ -3,7 +3,9 @@
 Every `validation/*.json` carries the git SHA and tree state of the run
 that produced it, so a drifted solver cannot silently hide behind a
 stale recorded number (the recorded-validation tests assert these
-records; the slow tier re-runs physics from scratch).
+records; the slow tier re-runs physics from scratch).  A source copy
+without its git metadata (a run on another machine) takes the stamp from
+PETIBM_GIT_SHA and PETIBM_GIT_DIRTY, set by whoever made the copy.
 """
 
 from __future__ import annotations
@@ -25,7 +27,11 @@ def provenance() -> dict:
             return ""
 
     sha = git("rev-parse", "HEAD")
-    dirty = bool(git("status", "--porcelain", "--untracked-files=no"))
+    if sha:
+        dirty = bool(git("status", "--porcelain", "--untracked-files=no"))
+    else:
+        sha = os.environ.get("PETIBM_GIT_SHA", "")
+        dirty = os.environ.get("PETIBM_GIT_DIRTY", "1") != "0"
     return {
         "git_sha": sha or None,
         "dirty_tree": dirty,

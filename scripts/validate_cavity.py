@@ -20,7 +20,6 @@ import glob
 import os
 import sys
 
-import h5py
 import numpy as np
 
 # Ghia et al. (1982): u on the vertical centerline through the geometric
@@ -78,6 +77,7 @@ def interp_line(coords, vals, target):
 
 
 def main() -> int:
+    import h5py  # reads saved snapshots; the Ghia tables above need none
     ap = argparse.ArgumentParser()
     ap.add_argument("-directory", default=".")
     ap.add_argument("--re", type=int, default=100, choices=sorted(RE_COL))
@@ -122,11 +122,11 @@ def main() -> int:
         from matplotlib import pyplot as plt
 
         fig, (a1, a2) = plt.subplots(1, 2, figsize=(10, 4))
-        a1.plot(u_mid, yu, "-", label="petibm-tpu")
+        a1.plot(u_mid, yu, "-", label="petibm-jax")
         a1.plot(u_ref, GHIA_U[:, 0], "o", label="Ghia et al. 1982")
         a1.set(xlabel="u", ylabel="y")
         a1.legend()
-        a2.plot(xv, v_mid, "-", label="petibm-tpu")
+        a2.plot(xv, v_mid, "-", label="petibm-jax")
         a2.plot(GHIA_V[:, 0], v_ref, "o", label="Ghia et al. 1982")
         a2.set(xlabel="x", ylabel="v")
         fig.tight_layout()

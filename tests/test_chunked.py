@@ -4,8 +4,8 @@ identical."""
 
 import numpy as np
 
-from petibm_tpu.solvers.decoupledibpm import DecoupledIBPMSolver
-from petibm_tpu.solvers.navierstokes import NavierStokesSolver
+from petibm_jax.solvers.decoupledibpm import DecoupledIBPMSolver
+from petibm_jax.solvers.navierstokes import NavierStokesSolver
 
 from test_parallel import cavity_config, cylinder_config
 

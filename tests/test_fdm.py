@@ -1,8 +1,8 @@
 """Fast-diagonalization direct Poisson solver (linalg/fdm.py).
 
 Checks the direct solve against the (verified) separable MG operator on
-stretched, periodic, 2D and 3D grids, the float32 accuracy the TPU path
-relies on, and the end-to-end equivalence of the FDM-default pressure
+stretched, periodic, 2D and 3D grids, the float32 accuracy the accelerator
+path relies on, and the end-to-end equivalence of the FDM-default pressure
 solve with the round-3 CG+MG path (reference behavior being replaced:
 navierstokes.cpp:566-580 with `-ksp_type cg -pc_type gamg`).
 """
@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from petibm_tpu.linalg.fdm import FastDiagPoisson, make_fdm_solver
-from petibm_tpu.linalg.mg import PoissonMG
+from petibm_jax.linalg.fdm import FastDiagPoisson, make_fdm_solver
+from petibm_jax.linalg.mg import PoissonMG
 
 
 def _stretched(n, r=1.03, h0=0.02):
@@ -83,7 +83,7 @@ def test_fft_path_skips_stretched_periodic():
 
 
 def test_fft_helmholtz_matches_eigh():
-    from petibm_tpu.linalg.fdm import FastDiagHelmholtz
+    from petibm_jax.linalg.fdm import FastDiagHelmholtz
 
     n, h = 24, 0.04
     dl = _stretched(17)
@@ -112,7 +112,7 @@ def test_float32_accuracy():
     dxp = [_stretched(96, 1.02), _stretched(96, 1.02)]
     fdm, mg = _check_direct(dxp, [False, False], dtype=jnp.float32,
                             tol=1e-4)
-    from petibm_tpu.linalg.krylov import cg
+    from petibm_jax.linalg.krylov import cg
 
     rng = np.random.default_rng(7)
     b = rng.standard_normal(mg.levels[0].shape)
@@ -167,7 +167,7 @@ def test_refinement_solver_semantics():
 def test_cavity_fdm_matches_mgcg(tmp_path, disable):
     """End-to-end: the FDM-default pressure solve reproduces the CG+MG
     solution of the same cavity flow (both converged to atol 1e-9)."""
-    from petibm_tpu.solvers.navierstokes import NavierStokesSolver
+    from petibm_jax.solvers.navierstokes import NavierStokesSolver
 
     def config(fdm_enabled):
         out = tmp_path / ("fdm" if fdm_enabled else "mg")
@@ -220,11 +220,11 @@ def test_helmholtz_direct_solve_matches_operator(tmp_path):
     """FastDiagHelmholtz inverts the BC-folded implicit momentum operator
     to rounding, per component, on a stretched cavity grid (Dirichlet
     walls) and a channel with a convective outlet."""
-    from petibm_tpu.boundary import BoundarySet
-    from petibm_tpu.linalg.fdm import FastDiagHelmholtz, helmholtz_lines
-    from petibm_tpu.mesh import StaggeredMesh
-    from petibm_tpu.operators import make_laplacian
-    from petibm_tpu.types import Field
+    from petibm_jax.boundary import BoundarySet
+    from petibm_jax.linalg.fdm import FastDiagHelmholtz, helmholtz_lines
+    from petibm_jax.mesh import StaggeredMesh
+    from petibm_jax.operators import make_laplacian
+    from petibm_jax.types import Field
 
     cfg = {
         "mesh": [
@@ -266,7 +266,7 @@ def test_helmholtz_direct_solve_matches_operator(tmp_path):
 def test_velocity_fdm_preconditioner_iterations(tmp_path):
     """With the Helmholtz FDM preconditioner the momentum CG converges in
     ~1 iteration; physics matches the Jacobi run."""
-    from petibm_tpu.solvers.navierstokes import NavierStokesSolver
+    from petibm_jax.solvers.navierstokes import NavierStokesSolver
 
     def cfg(out, vfdm):
         return {

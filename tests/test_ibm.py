@@ -11,14 +11,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from petibm_tpu.ibm.delta import peskin_2002, roma_1999
-from petibm_tpu.ibm.body import BodyPack, read_lagrangian_points
-from petibm_tpu.ibm.interp import DeltaOp
-from petibm_tpu.mesh import StaggeredMesh
-from petibm_tpu.solvers.decoupledibpm import DecoupledIBPMSolver
-from petibm_tpu.solvers.ibpm import IBPMSolver
-from petibm_tpu.solvers.rigidkinematics import RigidKinematicsSolver
-from petibm_tpu.types import Field
+from petibm_jax.ibm.delta import peskin_2002, roma_1999
+from petibm_jax.ibm.body import BodyPack, read_lagrangian_points
+from petibm_jax.ibm.interp import DeltaOp
+from petibm_jax.mesh import StaggeredMesh
+from petibm_jax.solvers.decoupledibpm import DecoupledIBPMSolver
+from petibm_jax.solvers.ibpm import IBPMSolver
+from petibm_jax.solvers.rigidkinematics import RigidKinematicsSolver
+from petibm_jax.types import Field
 
 from test_mesh import cavity_config
 
@@ -407,7 +407,7 @@ def test_dense_ebnh_matches_matrix_free(tmp_path):
     # direct solve vs Krylov solve of the same system
     rhs = jnp.asarray(rng.standard_normal((n, solver.mesh.dim)))
     df_dense = solver._solve_forces(rhs, win).x
-    from petibm_tpu.linalg import make_solver
+    from petibm_jax.linalg import make_solver
 
     krylov = make_solver(lambda df: solver._ebnh(df, win),
                          {"type": "cg", "atol": 1e-12, "max_it": 2000})
@@ -471,7 +471,7 @@ def test_windowed_delta_matches_factor_engine(tmp_path):
     """The gather/scatter windowed engine and the MXU factor-matrix engine
     are two layouts of the same operator: E and H results must agree to
     rounding, in 2D and with a periodic direction."""
-    from petibm_tpu.ibm.interp import WindowedDeltaOp
+    from petibm_jax.ibm.interp import WindowedDeltaOp
 
     cfg = ib_config(tmp_path)
     mesh = StaggeredMesh(cfg)
@@ -532,7 +532,7 @@ def test_windowed_delta_solver_equivalence(tmp_path):
 
 
 def test_windowed_delta_auto_threshold(tmp_path):
-    from petibm_tpu.ibm.interp import (WINDOWED_THRESHOLD, WindowedDeltaOp,
+    from petibm_jax.ibm.interp import (WINDOWED_THRESHOLD, WindowedDeltaOp,
                                        make_delta_op)
 
     cfg = ib_config(tmp_path)
@@ -546,7 +546,7 @@ def test_windowed_delta_auto_threshold(tmp_path):
 def test_windowed_delta_matches_factor_engine_3d():
     """3D layout equivalence of the two delta engines (the chunked
     expansion's axis handling differs from 2D)."""
-    from petibm_tpu.ibm.interp import WindowedDeltaOp
+    from petibm_jax.ibm.interp import WindowedDeltaOp
 
     cfg = {
         "mesh": [

@@ -7,13 +7,13 @@ import h5py
 import jax.numpy as jnp
 import numpy as np
 
-from petibm_tpu.boundary import BoundarySet
-from petibm_tpu.io.probes import ProbePoint, ProbeVolume, create_probe
-from petibm_tpu.io.vorticity import compute_vorticity, vorticity_meshes
-from petibm_tpu.io.xdmf import write_single_xdmf
-from petibm_tpu.mesh import StaggeredMesh
-from petibm_tpu.solvers.navierstokes import NavierStokesSolver
-from petibm_tpu.types import Field
+from petibm_jax.boundary import BoundarySet
+from petibm_jax.io.probes import ProbePoint, ProbeVolume, create_probe
+from petibm_jax.io.vorticity import compute_vorticity, vorticity_meshes
+from petibm_jax.io.xdmf import write_single_xdmf
+from petibm_jax.mesh import StaggeredMesh
+from petibm_jax.solvers.navierstokes import NavierStokesSolver
+from petibm_jax.types import Field
 
 from test_mesh import cavity_config
 from test_navierstokes import run_config
@@ -134,7 +134,7 @@ def test_amgx_solver_options_parsed(tmp_path):
     consumed by linsolveramgx.cpp:54-126); those must carry over with
     tolerances honored, with nested-scope knobs (the AMG preconditioner's
     own max_iters=1) correctly ignored."""
-    from petibm_tpu.config import parse_solver_options
+    from petibm_jax.config import parse_solver_options
 
     path = tmp_path / "poisson_solver.info"
     path.write_text("""\
@@ -183,7 +183,7 @@ def test_amgx_gpu_case_carries_over():
     pinned-pressure (GPU) backend."""
     import os
 
-    from petibm_tpu.config import load_config, solver_config
+    from petibm_jax.config import load_config, solver_config
 
     d = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "examples", "ibpm",

@@ -6,8 +6,8 @@ ghost conventions, periodic velocity-point append."""
 import numpy as np
 import pytest
 
-from petibm_tpu.mesh import StaggeredMesh, stretch_grid
-from petibm_tpu.types import Field
+from petibm_jax.mesh import StaggeredMesh, stretch_grid
+from petibm_jax.types import Field
 
 
 def cavity_config(nx=32, ny=32, bc="DIRICHLET"):

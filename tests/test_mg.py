@@ -8,12 +8,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from petibm_tpu.boundary import BoundarySet
-from petibm_tpu.linalg import cg
-from petibm_tpu.linalg.mg import PoissonMG
-from petibm_tpu.mesh import StaggeredMesh
-from petibm_tpu.operators import make_bn, make_divergence, make_gradient, make_laplacian
-from petibm_tpu.types import Field
+from petibm_jax.boundary import BoundarySet
+from petibm_jax.linalg import cg
+from petibm_jax.linalg.mg import PoissonMG
+from petibm_jax.mesh import StaggeredMesh
+from petibm_jax.operators import make_bn, make_divergence, make_gradient, make_laplacian
+from petibm_jax.types import Field
 
 from test_mesh import cavity_config, periodic_config
 
@@ -150,7 +150,7 @@ def test_mixed_precision_vcycle_preconditioner(tmp_path):
 
     _sys.path.insert(0, os.path.dirname(__file__))
     from test_navierstokes import run_config
-    from petibm_tpu.solvers.navierstokes import NavierStokesSolver
+    from petibm_jax.solvers.navierstokes import NavierStokesSolver
 
     cfg_a = run_config(tmp_path / "a", nt=10)
     cfg_a["parameters"]["dtype"] = "float32"
@@ -191,7 +191,7 @@ def test_sharded_mg_coarse_consolidation_equivalence():
     import jax
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-    from petibm_tpu.linalg.krylov import cg
+    from petibm_jax.linalg.krylov import cg
 
     n = 64
     dxp = [np.full(n, 1.0 / n), np.full(n, 1.0 / n)]

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from petibm_tpu import native
-from petibm_tpu.ibm import body as body_mod
-from petibm_tpu.mesh import stretch_grid
+from petibm_jax import native
+from petibm_jax.ibm import body as body_mod
+from petibm_jax.mesh import stretch_grid
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="hostcore toolchain unavailable")
@@ -13,7 +13,7 @@ pytestmark = pytest.mark.skipif(
 
 def test_stretch_grid_matches_python(monkeypatch):
     got = native.stretch_grid(-1.0, 2.5, 37, 1.03)
-    monkeypatch.setenv("PETIBM_TPU_NO_NATIVE", "1")
+    monkeypatch.setenv("PETIBM_NO_NATIVE", "1")
     h0 = (2.5 - -1.0) * 0.03 / (1.03**37 - 1.0)
     want = h0 * 1.03 ** np.arange(37)
     np.testing.assert_allclose(got, want, rtol=1e-13)

@@ -9,8 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from petibm_tpu.operators import make_divergence
-from petibm_tpu.solvers.navierstokes import NavierStokesSolver
+from petibm_jax.operators import make_divergence
+from petibm_jax.solvers.navierstokes import NavierStokesSolver
 
 from test_mesh import cavity_config
 
@@ -121,7 +121,7 @@ def test_solver_divergence_aborts(tmp_path):
     """A solve that exhausts max_it without reaching tolerance must raise
     SolverDivergedError naming the solver (reference parity:
     linsolverksp.cpp:96-104 SETERRQs on KSPConvergedReason < 0)."""
-    from petibm_tpu.linalg import SolverDivergedError
+    from petibm_jax.linalg import SolverDivergedError
 
     cfg = run_config(tmp_path, nt=2, nsave=2)
     cfg["parameters"]["poissonSolver"] = {
@@ -152,7 +152,7 @@ def test_explicit_pc_choice_wins_over_fdm_default(tmp_path):
     not (config.solver_config pc_explicit semantics)."""
     import os as _os
 
-    from petibm_tpu.linalg.fdm import make_fdm_solver  # noqa: F401
+    from petibm_jax.linalg.fdm import make_fdm_solver  # noqa: F401
 
     cfg_default = run_config(tmp_path / "a", nt=1)
     _os.makedirs(tmp_path / "a", exist_ok=True)

@@ -6,17 +6,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from petibm_tpu.boundary import BoundarySet
-from petibm_tpu.linalg import bicgstab, cg, extract_diagonal
-from petibm_tpu.mesh import StaggeredMesh
-from petibm_tpu.operators import (
+from petibm_jax.boundary import BoundarySet
+from petibm_jax.linalg import bicgstab, cg, extract_diagonal
+from petibm_jax.mesh import StaggeredMesh
+from petibm_jax.operators import (
     make_bn,
     make_convection,
     make_divergence,
     make_gradient,
     make_laplacian,
 )
-from petibm_tpu.types import Field
+from petibm_jax.types import Field
 
 from test_mesh import cavity_config, periodic_config
 
@@ -315,7 +315,7 @@ def test_flux_velocity_converters_roundtrip():
     """R / R^-1 diagonal operators: flux = velocity * perpendicular face
     area; converting there and back is exact (reference:
     solutionsimple.cpp:90-119 convert2Velocity / convert2Flux)."""
-    from petibm_tpu.operators import (
+    from petibm_jax.operators import (
         convert_to_flux, convert_to_velocity, make_m, make_mhat, make_r)
 
     cfg = cavity_config(8, 6)
@@ -350,10 +350,10 @@ def test_laplacian_correction_matches_difference(tmp_path):
     import numpy as np
 
     from test_mesh import cavity_config
-    from petibm_tpu.boundary import BoundarySet
-    from petibm_tpu.mesh import StaggeredMesh
-    from petibm_tpu.operators.stencil import VEL_NAMES, make_laplacian
-    from petibm_tpu.types import Field
+    from petibm_jax.boundary import BoundarySet
+    from petibm_jax.mesh import StaggeredMesh
+    from petibm_jax.operators.stencil import VEL_NAMES, make_laplacian
+    from petibm_jax.types import Field
 
     cfg = cavity_config(13, 11)
     cfg["flow"]["boundaryConditions"] = [

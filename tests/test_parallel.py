@@ -12,9 +12,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from petibm_tpu.parallel import mesh_from_config
-from petibm_tpu.solvers.decoupledibpm import DecoupledIBPMSolver
-from petibm_tpu.solvers.navierstokes import NavierStokesSolver
+from petibm_jax.parallel import mesh_from_config
+from petibm_jax.solvers.decoupledibpm import DecoupledIBPMSolver
+from petibm_jax.solvers.navierstokes import NavierStokesSolver
 
 SHARDING = {"nDevices": 8, "platform": "cpu"}
 
@@ -195,7 +195,7 @@ def test_decoupledibpm_3d_sharded_matches_single():
 
 def test_ibpm_coupled_sharded_matches_single():
     """The coupled {p, f} block solve under the 8-device mesh."""
-    from petibm_tpu.solvers.ibpm import IBPMSolver
+    from petibm_jax.solvers.ibpm import IBPMSolver
 
     with tempfile.TemporaryDirectory() as d1, \
             tempfile.TemporaryDirectory() as d2:
@@ -219,7 +219,7 @@ def test_ibpm_coupled_sharded_matches_single():
 
 def test_rigidkinematics_sharded_matches_single():
     """Moving-body windows recomputed inside the sharded jitted step."""
-    from petibm_tpu.solvers.rigidkinematics import RigidKinematicsSolver
+    from petibm_jax.solvers.rigidkinematics import RigidKinematicsSolver
 
     def config(d, sharding=None):
         cfg = cylinder_config(d, sharding=sharding)
@@ -244,8 +244,8 @@ def test_rigidkinematics_sharded_matches_single():
 
 def test_decoupledibpm_3axis_mesh_matches_single():
     """3-axis ("dz","dy","dx") decomposition (sharding.shape: [2, 2, 2]):
-    the z direction is sharded too — the layout a multi-host 3D pod run
-    wants (VERDICT r3 weak #7) — and the physics is identical."""
+    the z direction is sharded too — the layout a multi-host 3D run
+    wants — and the physics is identical."""
     with tempfile.TemporaryDirectory() as d1, \
             tempfile.TemporaryDirectory() as d2:
         ref = DecoupledIBPMSolver(sphere_config(d1))

@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from petibm_tpu.solvers.navierstokes import NavierStokesSolver
-from petibm_tpu.types import Field
+from petibm_jax.solvers.navierstokes import NavierStokesSolver
+from petibm_jax.types import Field
 
 PI = 3.141592653589793
 
@@ -93,7 +93,7 @@ def test_cavity3d_end_to_end(tmp_path):
     solver = NavierStokesSolver(cavity3d_config(tmp_path))
     solver.run()
     solver.close()
-    from petibm_tpu.operators import make_divergence
+    from petibm_jax.operators import make_divergence
 
     div = make_divergence(solver.mesh, solver.bc, solver.dtype)
     d = div(solver.state["q"], solver.state["bc"])
@@ -114,7 +114,7 @@ def test_cavity3d_vorticity_and_probe(tmp_path):
     solver = NavierStokesSolver(cfg)
     solver.run()
     solver.close()
-    from petibm_tpu.io.vorticity import compute_vorticity
+    from petibm_jax.io.vorticity import compute_vorticity
 
     w = compute_vorticity(solver.mesh, solver.bc, solver.state["q"],
                           solver.state["bc"])

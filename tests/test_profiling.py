@@ -1,6 +1,6 @@
 """The stage profiler's phase decomposition must reproduce the production
 step exactly — the phases re-express _build_step and would otherwise
-silently drift (petibm_tpu/utils/profiling.py)."""
+silently drift (petibm_jax/utils/profiling.py)."""
 
 import sys
 
@@ -45,7 +45,7 @@ def assert_states_match(a, b):
 
 
 def test_phases_match_step_navierstokes(tmp_path):
-    from petibm_tpu.solvers.navierstokes import NavierStokesSolver
+    from petibm_jax.solvers.navierstokes import NavierStokesSolver
 
     solver = NavierStokesSolver(run_config(tmp_path, nt=3))
     assert_states_match(compose_phases(solver, solver.state, 3),
@@ -54,7 +54,7 @@ def test_phases_match_step_navierstokes(tmp_path):
 
 
 def test_phases_match_step_decoupledibpm(tmp_path):
-    from petibm_tpu.solvers.decoupledibpm import DecoupledIBPMSolver
+    from petibm_jax.solvers.decoupledibpm import DecoupledIBPMSolver
 
     solver = DecoupledIBPMSolver(ib_config(tmp_path, nt=3))
     assert_states_match(compose_phases(solver, solver.state, 3),
@@ -63,7 +63,7 @@ def test_phases_match_step_decoupledibpm(tmp_path):
 
 
 def test_phases_match_step_ibpm(tmp_path):
-    from petibm_tpu.solvers.ibpm import IBPMSolver
+    from petibm_jax.solvers.ibpm import IBPMSolver
 
     solver = IBPMSolver(ib_config(tmp_path, nt=3))
     assert_states_match(compose_phases(solver, solver.state, 3),
@@ -72,7 +72,7 @@ def test_phases_match_step_ibpm(tmp_path):
 
 
 def test_phases_match_step_rigidkinematics(tmp_path):
-    from petibm_tpu.solvers.rigidkinematics import RigidKinematicsSolver
+    from petibm_jax.solvers.rigidkinematics import RigidKinematicsSolver
 
     cfg = ib_config(tmp_path, nt=3)
     cfg["bodies"][0]["kinematics"] = {

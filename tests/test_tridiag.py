@@ -1,10 +1,12 @@
-"""PCR tridiagonal solver: exactness vs direct solutions, and MG
-convergence with the accelerator (PCR) smoother path forced on."""
+"""PCR tridiagonal solver: exactness vs direct solutions, agreement of
+the MG line sweep with lax.linalg.tridiagonal_solve, and MG convergence
+with the PCR smoother path forced on."""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from petibm_tpu.linalg.tridiag import tridiag_solve_pcr
+from petibm_jax.linalg.tridiag import tridiag_solve_pcr
 
 
 def _random_system(rng, batch, n):
@@ -48,108 +50,41 @@ def test_pcr_poisson_line_systems():
     np.testing.assert_allclose(np.asarray(got), x, rtol=1e-8, atol=1e-8)
 
 
-def test_pallas_pcr_matches_xla_pcr():
-    """The fused VMEM kernel (interpret mode) must match the XLA PCR along
-    both the lane and sublane axes."""
-    from petibm_tpu.linalg.pallas_pcr import pcr_pallas
+@pytest.mark.parametrize("dim,periodic", [
+    (2, (False, False)), (2, (True, False)),
+    (3, (False, False, False)), (3, (False, True, True)),
+], ids=["2d-walls", "2d-xperiodic", "3d-walls", "3d-yzperiodic"])
+def test_line_sweep_pcr_matches_lax(dim, periodic):
+    """One MG smoothing pass (every direction's line sweep) on a stretched
+    grid gives the same result with the jnp PCR as with
+    lax.linalg.tridiagonal_solve, the default backend."""
+    from petibm_jax.linalg.mg import PoissonMG
 
-    rng = np.random.default_rng(3)
-    for n, axis in ((37, 1), (37, 0), (64, 1), (64, 0)):
-        shape = (n, 41) if axis == 0 else (41, n)
-        a = np.zeros(shape)
-        c = np.zeros(shape)
-        sl_in = [slice(None)] * 2
-        sl_in[axis] = slice(1, None)
-        a[tuple(sl_in)] = -rng.random([s - (1 if i == axis else 0)
-                                       for i, s in enumerate(shape)])
-        sl_in[axis] = slice(0, -1)
-        c[tuple(sl_in)] = -rng.random([s - (1 if i == axis else 0)
-                                       for i, s in enumerate(shape)])
-        b = 1.0 + np.abs(a) + np.abs(c)
-        x = rng.standard_normal(shape)
-        d = b * x
-        sl_lo = [slice(None)] * 2
-        sl_lo[axis] = slice(1, None)
-        sl_hi = [slice(None)] * 2
-        sl_hi[axis] = slice(0, -1)
-        d[tuple(sl_lo)] += a[tuple(sl_lo)] * x[tuple(sl_hi)]
-        d[tuple(sl_hi)] += c[tuple(sl_hi)] * x[tuple(sl_lo)]
-        got = pcr_pallas(jnp.asarray(a), jnp.asarray(b), jnp.asarray(c),
-                         jnp.asarray(d), axis=axis, interpret=True)
-        np.testing.assert_allclose(np.asarray(got), x, rtol=0, atol=1e-10,
-                                   err_msg=f"n={n} axis={axis}")
-
-
-def test_pallas_pcr_blocked_3d_all_axes():
-    """Blocked PCR (grid over a non-line axis) on a 3D batch, every line
-    axis, against the XLA PCR."""
-    from petibm_tpu.linalg.pallas_pcr import pcr_pallas_blocked, pick_block
-
-    rng = np.random.default_rng(5)
-    # sublane dim divisible by 8 so even z-lines (axis 0) find a valid
-    # tiled block; an odd sublane extent makes pick_block decline axis 0
-    from petibm_tpu.linalg.pallas_pcr import pick_block as _pick
-
-    assert _pick((12, 10, 16), 0, jnp.float64, budget=4096 * 8 * 8) is None
-    shape = (12, 16, 16)
-    for axis in (0, 1, 2):
-        n = shape[axis]
-        a = -rng.random(shape) * 0.4
-        c = -rng.random(shape) * 0.4
-        sl = [slice(None)] * 3
-        sl[axis] = 0
-        a[tuple(sl)] = 0.0
-        sl[axis] = n - 1
-        c[tuple(sl)] = 0.0
-        b = 1.0 + np.abs(a) + np.abs(c)
-        x = rng.standard_normal(shape)
-        lo = [slice(None)] * 3
-        lo[axis] = slice(1, None)
-        hi = [slice(None)] * 3
-        hi[axis] = slice(0, -1)
-        d = b * x
-        d[tuple(lo)] += a[tuple(lo)] * x[tuple(hi)]
-        d[tuple(hi)] += c[tuple(hi)] * x[tuple(lo)]
-        ba, bs = pick_block(shape, axis, jnp.float64, budget=4096 * 8 * 8)
-        assert ba != axis and shape[ba] % bs == 0 and bs < shape[ba]
-        got = pcr_pallas_blocked(jnp.asarray(a), jnp.asarray(b),
-                                 jnp.asarray(c), jnp.asarray(d),
-                                 axis=axis, block_axis=ba, bs=bs,
-                                 interpret=True)
-        np.testing.assert_allclose(np.asarray(got), x, rtol=0, atol=1e-10,
-                                   err_msg=f"axis={axis}")
-
-
-def test_mgcg_with_pallas_pcr_smoother():
-    """Force the fused Pallas PCR path (interpret mode) end-to-end through
-    MGCG on a stretched 2D mesh."""
-    from petibm_tpu.linalg.krylov import cg
-    from petibm_tpu.linalg.mg import PoissonMG
-
-    rng = np.random.default_rng(4)
-    widths = [np.geomspace(1.0, 3.0, 48), np.geomspace(1.0, 2.0, 40)]
-    mg = PoissonMG(widths, [False, False], dtype=jnp.float64)
+    rng = np.random.default_rng(6)
+    ns = (12, 9, 7)[:dim]
+    widths = [np.geomspace(1.0, 2.5, n) / n for n in ns]
+    mg = PoissonMG(widths, list(periodic), dtype=jnp.float64)
+    shape = tuple(reversed(ns))
+    phi = jnp.asarray(rng.standard_normal(shape))
+    rhs = jnp.asarray(rng.standard_normal(shape))
+    assert not mg.use_pcr  # tridiagonal_solve by default
+    ref = mg.smooth(0, phi, rhs, 2)
     mg.use_pcr = True
-    mg._pallas_interpret = True
-    rhs = rng.standard_normal((40, 48))
-    rhs -= rhs.mean()
-    rhs = jnp.asarray(rhs)
-    sol = cg(lambda p: mg.apply_op(0, p), rhs, jnp.zeros_like(rhs),
-             M=mg.preconditioner(), atol=1e-10, maxiter=60)
-    assert bool(sol.converged)
-    assert int(sol.iters) < 30
+    got = mg.smooth(0, phi, rhs, 2)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-10,
+                               atol=1e-12)
 
 
 def test_mgcg_with_pcr_smoother():
-    """Force the PCR path (the accelerator default) on the CPU test mesh:
-    MG-preconditioned CG must converge identically well."""
-    from petibm_tpu.linalg.krylov import cg
-    from petibm_tpu.linalg.mg import PoissonMG
+    """Force the PCR path on a stretched 2D mesh: MG-preconditioned CG
+    must converge as well as with the default tridiagonal_solve."""
+    from petibm_jax.linalg.krylov import cg
+    from petibm_jax.linalg.mg import PoissonMG
 
     rng = np.random.default_rng(2)
     widths = [np.geomspace(1.0, 3.0, 48), np.geomspace(1.0, 2.0, 40)]
     mg = PoissonMG(widths, [False, False], dtype=jnp.float64)
-    assert not mg.use_pcr  # CPU default
+    assert not mg.use_pcr  # tridiagonal_solve by default
     mg.use_pcr = True
     rhs = rng.standard_normal((40, 48))
     rhs -= rhs.mean()
@@ -158,3 +93,28 @@ def test_mgcg_with_pcr_smoother():
              M=mg.preconditioner(), atol=1e-10, maxiter=60)
     assert bool(sol.converged)
     assert int(sol.iters) < 30
+
+
+def test_short_lines_avoid_tridiagonal_solve(monkeypatch):
+    """cuSPARSE's batched tridiagonal solver refuses lines shorter than 3
+    points, which the coarsest MG levels have: those lines go to PCR."""
+    import jax.lax.linalg as lax_linalg
+
+    from petibm_jax.linalg.mg import PoissonMG
+
+    orig = lax_linalg.tridiagonal_solve
+    seen = []
+
+    def checked(dl, d, du, b):
+        seen.append(d.shape[-1])
+        assert d.shape[-1] >= 3, d.shape
+        return orig(dl, d, du, b)
+
+    monkeypatch.setattr(lax_linalg, "tridiagonal_solve", checked)
+    widths = [np.geomspace(1.0, 2.0, 16), np.geomspace(1.0, 1.5, 8)]
+    mg = PoissonMG(widths, [False, False], dtype=jnp.float64)
+    assert min(mg.levels[-1].shape) < 3
+    rhs = np.random.default_rng(7).standard_normal((8, 16))
+    out = mg.vcycle(0, jnp.asarray(rhs - rhs.mean()))
+    assert np.all(np.isfinite(np.asarray(out)))
+    assert seen and min(seen) >= 3
